@@ -3,8 +3,8 @@
 
 A 1M x 750k power-law matrix (11.3M nnz, Zipf alpha=1.2 column
 popularity — relation matrices are dense in the small-prime columns) —
-the structured instance class where the round-2 partitioner degraded
-(VERDICT round 2, weak #1).  Used for the end-to-end CLI solve +
+the structured instance class where an earlier partitioner degraded.
+Used for the end-to-end CLI solve +
 independent-checker benchmark row (the reference's published numbers
 are on structured course matrices, not uniform random ones).
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Attribute the GF(2) mesh overhead (VERDICT round-3 weak #4).
+"""Attribute the GF(2) mesh overhead on a virtual CPU mesh.
 
 Round 3 measured 2.13x s/iter going 1 -> 8 virtual devices for GF(2)
 (scaling_r03_gf2_cpu8.csv) vs 1.28x for the narrow field, with no analysis.
@@ -36,7 +36,6 @@ import argparse
 import csv
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
@@ -69,9 +68,9 @@ def main():
     from block_lanczos_tpu.ops import gf2 as gf2ops
     from block_lanczos_tpu.parallel import distributed_gf2 as dg
     from block_lanczos_tpu.parallel.mesh import make_mesh
-    from block_lanczos_tpu.parallel.multihost import put_global
     from block_lanczos_tpu.utils.gen import random_sparse
     from block_lanczos_tpu.utils.mmio import COOMatrix
+    from block_lanczos_tpu.utils.profiling import loop_s_per_iter, solver_loop
 
     # never stop early: wrong-math variants can hit npiv == 0 spuriously
     orig_semi = gf2ops.semi_inverse_gf2
@@ -117,19 +116,8 @@ def main():
                     solver = dg.ShardedBlockLanczosGF2(
                         M, n=args.n, mesh=mesh, check_invariants=False,
                         ops=ops)
-                    v = solver.initial_block()
-                    p_blk = put_global(
-                        np.zeros((solver.np_rows, solver.W), np.uint32),
-                        solver._vec_sharding)
-                    sargs = solver._step_args()
-                    v, p_blk, *rest = solver._multi_step(
-                        *sargs, v, p_blk, np.uint32(2))
-                    np.asarray(v)
-                    t0 = time.perf_counter()
-                    v, p_blk, *rest = solver._multi_step(
-                        *sargs, v, p_blk, np.uint32(args.iters))
-                    np.asarray(v)
-                    per = (time.perf_counter() - t0) / max(int(rest[-1]), 1)
+                    per, _ = loop_s_per_iter(*solver_loop(solver),
+                                             args.iters, warmup=2)
                 finally:
                     dg.pxor = variants["lane"][0]
                     jax.shard_map = orig_shard_map

@@ -4,12 +4,12 @@
 The reference ships benchmarks/mpi_vs_hybrid.csv: the same solve run
 MPI-pure (one rank per core) vs hybrid (MPI ranks x OpenMP threads),
 measuring what the extra process boundary costs at equal parallelism.
-The TPU-native analogue: the same ("rows","cols") device mesh driven by
+The analogue here: the same ("rows","cols") device mesh driven by
 ONE controller process vs SPLIT across jax.distributed controller
 processes (multi-host SPMD, parallel/multihost.py) — same program, same
 collectives, but cross-process coordination on the dispatch path.
 
-On real pods the split rides DCN between hosts; on this host it runs the
+Across hosts the split rides the network; on one CPU host it runs the
 virtual CPU mesh, so the measured delta is the multi-controller dispatch
 overhead (the machinery's cost floor), not network. Same honesty rules as
 benchmarks/scaling.py.

@@ -1,10 +1,10 @@
-"""block_lanczos_tpu — TPU-native exact sparse linear algebra over GF(p).
+"""block_lanczos_tpu — exact sparse linear algebra over GF(p) in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capability set of the
+A from-scratch JAX/XLA framework with the capability set of the
 reference C project (`block-lanczos-algorithm-parallelization`): computing a
 block of kernel vectors of x*M == 0 (mod p) (or M*x == 0) for large sparse
 integer matrices via the block Lanczos algorithm of E. Thome, with exact
-modular arithmetic, multi-chip sharding, checkpoint/resume, an independent
+modular arithmetic, multi-device sharding, checkpoint/resume, an independent
 checker, and a benchmark harness.
 
 Layout (mirrors SURVEY.md section 7):

@@ -117,6 +117,8 @@ def make_gf2_op(out_idx, in_idx, out_dim: int, in_dim: int,
                  spill_nnz=s_nnz)
 
 
+# slab-walk unroll limit, as ops/spmm.py (set before the H100 port;
+# not measured on the H100, ROADMAP C5)
 _ELL_UNROLL = 32
 
 

@@ -117,8 +117,8 @@ class BlockLanczosWide:
         self.check_invariants = check_invariants
         x_obj = np.asarray(M.x, dtype=object)
         # input banding engages per direction when the (in_dim, n) PAIR
-        # gather table exceeds the measured staging budget — the wide
-        # twin of SpMatrix.from_coo's policy (ops/spmm.py:160-170)
+        # gather table exceeds the banding threshold — the wide twin of
+        # SpMatrix.from_coo's policy (ops/spmm.py:160-170)
         fwd = wo.make_wide_op_auto(self.f, M.i, M.j, x_obj,
                                    M.nrows, M.ncols, n=self.n)
         bwd = wo.make_wide_op_auto(self.f, M.j, M.i, x_obj,

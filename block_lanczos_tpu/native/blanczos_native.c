@@ -1,7 +1,7 @@
 /*
  * Native host-side helpers for block_lanczos_tpu (loaded via ctypes).
  *
- * The TPU compute path is JAX/XLA/Pallas; this C library covers the
+ * The device compute path is JAX/XLA; this C library covers the
  * host-side runtime the reference implements in C: fast MatrixMarket triplet
  * parsing (reference: sequential/lanczos_modp.c:199-263), the xoshiro256+
  * PRNG used for the deterministic initial block (reference:

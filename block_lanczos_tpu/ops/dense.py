@@ -1,8 +1,8 @@
-"""Dense mod-p block linear algebra on TPU.
+"""Dense mod-p block linear algebra on the device.
 
 Covers the reference's L3/L4 layers (matmul_CpAB / matmul_CpAtB /
 block_dot_products; reference: sequential/lanczos_modp.c:292-315,443-453)
-with TPU-native formulations:
+with uint32-only formulations:
 
   * tile products (N x k) * (k x m) with k, m <= block width n: one
     mont_mul per scalar product and a 15-bit-limb exact sum over k
@@ -41,7 +41,8 @@ def matmul_mont(f: GFp, X, Bm):
 
 
 def _gram_chunk_rows(n_cols_sq: int) -> int:
-    """Row-chunk size: bounded by the limb-sum cap and a ~32MB temp budget."""
+    """Row-chunk size: bounded by the limb-sum cap and a ~32MB temp budget
+    (set before the H100 port; not measured on the H100, ROADMAP C5)."""
     budget = max(256, (1 << 23) // max(n_cols_sq, 1))
     return min(gfp.LIMB_SUM_MAX, budget)
 

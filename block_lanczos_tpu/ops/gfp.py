@@ -1,8 +1,10 @@
-"""Exact GF(p) arithmetic on TPU, built on uint32.
+"""Exact GF(p) arithmetic built on uint32 only.
 
-TPUs have no native 64-bit integer datapath, so the reference's pervasive
-"accumulate in u64, reduce % p" idiom (reference: sequential/lanczos_modp.c:280-285)
-cannot be translated directly.  Instead this module provides:
+The reference's pervasive "accumulate in u64, reduce % p" idiom
+(reference: sequential/lanczos_modp.c:280-285) is not used: every device
+value stays uint32, so the program needs no 64-bit integer support
+(whether native u64 pays on the H100 is not measured, ROADMAP C6).
+This module provides:
 
   * a full 32x32 -> hi/lo-64 multiply from 16-bit limb products (uint32 only),
   * Montgomery multiplication with R = 2^32 for odd p (exact, branch-free),

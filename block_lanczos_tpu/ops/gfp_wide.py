@@ -1,4 +1,4 @@
-"""Exact GF(p) arithmetic for WIDE primes (p < 2^62) on TPU uint32 pairs.
+"""Exact GF(p) arithmetic for WIDE primes (p < 2^62) on uint32 pairs.
 
 The reference caps the prime at 2^30 - 35 because its entire design rests
 on "accumulate in u64, reduce % p" with ~16 unreduced additions of

@@ -14,7 +14,7 @@ Two implementations:
   * `semi_inverse_device`: branch-free masked formulation (fori_loop +
     one-hot row swaps + Fermat inversion) that runs *inside* jit, so the
     whole Lanczos iteration stays on-device with no host round trip — the
-    TPU-native answer to the reference's "inherently sequential, never
+    answer to the reference's "inherently sequential, never
     parallelized" host step (SURVEY.md section 2).
 """
 

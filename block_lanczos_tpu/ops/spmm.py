@@ -1,7 +1,7 @@
-"""Sparse matrix-times-vector-block (SpMM) over GF(p) on TPU.
+"""Sparse matrix-times-vector-block (SpMM) over GF(p) on the device.
 
 The reference's hot loop (62% of runtime) is a COO scatter with a `% prime`
-after every FMA (reference: sequential/lanczos_modp.c:266-287).  The TPU
+after every FMA (reference: sequential/lanczos_modp.c:266-287).  This
 formulation instead:
 
   * stores the matrix twice, row-sorted and column-sorted, so both y = M*x
@@ -9,7 +9,7 @@ formulation instead:
   * keeps coefficients pre-converted to the Montgomery domain at load time,
     so each product is ONE mont_mul (exact, no divide),
   * defers reduction: products < p < 2^30 are split into 15-bit limbs and
-    accumulated with plain uint32 adds (the TPU analogue of the reference's
+    accumulated with plain uint32 adds (the uint32 analogue of the reference's
     "accumulate in u64, reduce once" OpenMP optimization,
     reference: openMP/lanczos_modp.c:329-374) — overflow-safe by
     construction for segments up to 2^17 elements,
@@ -74,8 +74,8 @@ class SparseOp:
 def _sort_by(key_idx, other_idx, vals, key_dim):
     """Sort by (key_idx, other_idx): row-major with ascending column within
     each row.  The secondary key costs nothing for correctness (segment sums
-    are order-independent) and improves gather locality on TPU — consecutive
-    nnz hit ascending x rows."""
+    are order-independent) and improves gather locality — consecutive nnz
+    hit ascending x rows."""
     order = np.lexsort((other_idx, key_idx))
     return (np.asarray(key_idx, np.int32)[order],
             np.asarray(other_idx, np.int32)[order],
@@ -185,9 +185,10 @@ def spmv_block(f: GFp, op: SparseOp, x, out_rows: int | None = None):
     output dimension are zero, matching the reference's zero-padded blocks.
 
     Fast path: gather + ONE fused elementwise mont_mul + limb prefix-sums +
-    rowptr differences.  XLA TPU scatter serializes on colliding indices
-    (measured 25x slower than this), so the segment reduction is done
-    scatter-free: with entries sorted by output row, the segment sum is the
+    rowptr differences.  The segment reduction is scatter-free (set before
+    the H100 port, for a scatter that serialized on colliding indices; a
+    native scatter-add is not measured on the H100, ROADMAP A1): with
+    entries sorted by output row, the segment sum is the
     difference of an (exclusive) running prefix at the row boundaries;
     uint32 wrap-around keeps the differences exact because every true
     segment sum of 15-bit limbs stays below 2^32 (seg_safe).
@@ -261,13 +262,13 @@ def _spmv_scan(f: GFp, op: SparseOp, x, out_rows: int):
 # Hybrid ELL + spill layout — the production SpMV path
 # ---------------------------------------------------------------------------
 #
-# The prefix-sum path reads/writes O(nnz * n) prefix state; measured on TPU
-# the gather is row-count-bound (~3ns/row, independent of n), so a k-loop
-# over a fixed-width ELL slab — L gathers of (rows, n) with in-register
-# modadd accumulation — is 1.8x (n=4) to 4.5x (n=64) faster.  Rows denser
-# than the chosen width spill their excess entries to a small COO sidecar
-# handled by the prefix path, which keeps the slab width near the mean nnz
-# per row even for skewed matrices.  Static shapes everywhere.
+# The prefix-sum path reads/writes O(nnz * n) prefix state; a k-loop over a
+# fixed-width ELL slab — L gathers of (rows, n) with in-register modadd
+# accumulation — writes no such state (layout set before the H100 port;
+# not measured on the H100, ROADMAP C5).  Rows denser than the chosen width spill their
+# excess entries to a small COO sidecar handled by the prefix path, which
+# keeps the slab width near the mean nnz per row even for skewed matrices.
+# Static shapes everywhere.
 
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass
@@ -543,6 +544,7 @@ def make_hybrid_op(f: GFp, out_idx, in_idx, vals, out_dim: int, in_dim: int,
 
 
 # L-loop unroll limit: beyond this use fori_loop to bound trace size
+# (set before the H100 port; not measured on the H100, ROADMAP C5)
 _ELL_UNROLL = 32
 
 
@@ -608,11 +610,9 @@ class BandedOp:
     """Input-banded hybrid operator: part b covers x rows [lo_b, hi_b).
 
     y = sum_b part_b(x[lo_b:hi_b]) exactly mod p.  Banding keeps each slab
-    walk's gather table small: measured on the bench TPU, gathers from a
-    > ~3.2 MB table cost ~2x more per row than from a <= ~1.6 MB slice
-    (the VMEM staging budget), so splitting the 300k-row input of the
-    4.5M-nnz bench matrix into 3 bands cut the SpMV from 36.9 to 22.6 ms.
-    Bit-exact with the monolithic layout: mod-p sums are associative.
+    walk's gather table small (set before the H100 port; not measured on
+    the H100, ROADMAP C5).  Bit-exact with the monolithic layout: mod-p
+    sums are associative.
     """
     out_dim: int
     in_dim: int
@@ -631,13 +631,11 @@ class BandedOp:
         return cls(out_dim, in_dim, nnz, bounds, tuple(parts))
 
 
-# Band policy constants, measured on the bench chip (see PERF.md):
-# gather tables above ~3.2 MB pay ~2x per row; ~1.6 MB slices recover the
-# fast path; fewer than 3 bands triggers a slow XLA fusion shape; bands
-# thinner than ~80k rows (large n) inflate per-band slab padding past the
-# gather savings (n=32 measured 2x SLOWER banded); and MANY bands lose the
-# same way regardless of band size (51M-nnz matrix: monolithic 822 ms/iter,
-# 3 bands 1071, 29 bands 2228 — per-band slab padding scales with parts).
+# Band policy constants (set before the H100 port; not measured on the
+# H100, ROADMAP C5): band gather tables above ~3.2 MB into ~1.6 MB
+# slices, at least 3 and at most 6 bands, never thinner than 80k rows
+# (per-band slab padding grows with the number of parts).  Outputs
+# are bit-identical under any setting (tests/test_sparse_dense.py fuzz).
 BAND_TABLE_BYTES = 32 * (1 << 20) // 10  # ~3.2 MB: band above this
 BAND_TARGET_BYTES = 16 * (1 << 20) // 10  # ~1.6 MB per band
 BAND_MIN_PARTS = 3
@@ -648,11 +646,11 @@ BAND_MIN_ROWS = 80_000
 def band_count(in_dim: int, n: int) -> int:
     """Number of input bands for an (in_dim, n) uint32 gather table.
 
-    1 (monolithic) unless the table exceeds the staging budget AND the
+    1 (monolithic) unless the table exceeds BAND_TABLE_BYTES AND the
     target-sized band still holds enough rows for a dense slab AND the
     whole table splits into few enough bands that per-band slab padding
     stays negligible.  In practice this engages for n <= 4 with
-    ~0.2M < in_dim <= ~0.65M (measured win: -24% iteration time).
+    ~0.2M < in_dim <= ~0.65M.
     """
     table = in_dim * n * 4
     if table <= BAND_TABLE_BYTES:
@@ -670,8 +668,8 @@ def band_bounds(in_dim: int, nbands: int):
 
     Single source of truth for the band split — the single-device
     make_banded_op and the per-shard mesh banding
-    (parallel/sharding._build_dir_banded) must cut identically or the
-    'same measured policy' claim in PERF.md silently diverges.
+    (parallel/sharding._build_dir_banded) must cut identically or the two
+    paths' layouts silently diverge.
     """
     nbands = max(1, min(int(nbands), max(in_dim, 1)))
     band = -(-in_dim // nbands)

@@ -316,6 +316,8 @@ def _spmv_spill_prefix(f: GFpWide, op: WideSparseOp, x, out_rows: int):
     return y
 
 
+# slab-walk unroll limit, as ops/spmm.py (set before the H100 port;
+# not measured on the H100, ROADMAP C5)
 _ELL_UNROLL = 32
 
 
@@ -373,14 +375,11 @@ def spmv_wide(f: GFpWide, op: WideHybridOp, x, out_rows: int | None = None):
 class WideBandedOp:
     """Input-banded wide operator: part b gathers from x rows [lo_b, hi_b).
 
-    Same measured rationale as the narrow BandedOp (ops/spmm.py): gathers
-    from a table above ~3.2 MB cost ~2x per row vs a <= ~1.6 MB slice on
-    the bench chip, and the WIDE x-table is (in_dim, n, 2) uint32 — twice
-    the bytes per element — so it blows the staging budget at HALF the
-    narrow in_dim.  The round-4 chip ablation pinned ~79% of the wide
-    iteration on the gather (nogather = 0.21x real), which makes banding
-    the highest-leverage traffic lever for this field.  Bit-exact with the
-    monolithic layout: mod-p sums are associative.
+    Same policy as the narrow BandedOp (ops/spmm.py; set before the H100
+    port, not measured on the H100, ROADMAP C5); the WIDE x-table is
+    (in_dim, n, 2) uint32 — twice the bytes per element — so it reaches
+    the table threshold at HALF the narrow in_dim.  Bit-exact with
+    the monolithic layout: mod-p sums are associative.
     """
     out_dim: int
     in_dim: int
@@ -400,9 +399,9 @@ class WideBandedOp:
         return cls(out_dim, in_dim, nnz, ell, bounds, tuple(parts))
 
 
-# Rows-per-band floor: the narrow guard (80k) was measured against per-band
-# slab padding whose cost scales with SLOT BYTES; wide slots are 2x the
-# bytes, so the equal-overhead floor sits at half the rows.
+# Rows-per-band floor: the narrow guard (80k) bounds per-band slab padding,
+# whose cost scales with SLOT BYTES; wide slots are 2x the bytes, so the
+# equal-overhead floor sits at half the rows.
 BAND_MIN_ROWS_WIDE = 40_000
 
 
@@ -465,7 +464,7 @@ def apply_wide(f: GFpWide, op, x, out_rows: int | None = None):
 def make_wide_op_auto(f: GFpWide, out_idx, in_idx, vals, out_dim: int,
                       in_dim: int, n: int, chunk: int = DEFAULT_CHUNK):
     """Policy-selected wide operator: banded when the (in_dim, n) pair
-    gather table exceeds the measured staging budget, else monolithic."""
+    gather table exceeds the banding threshold, else monolithic."""
     nb = wide_band_count(in_dim, n)
     if nb > 1:
         return make_wide_banded_op(f, out_idx, in_idx, vals, out_dim,

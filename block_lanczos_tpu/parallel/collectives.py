@@ -3,7 +3,7 @@
 MPI has no modular-arithmetic reduction, so the reference hand-rolls
 Send/Recv loops that sum partials u64-exactly at a communicator root
 (reference: mpi/lanczos_modp.c:1088-1125, comment "not using MPI_Reduce to
-avoid overflow").  On TPU we get exactness *and* the native all-reduce:
+avoid overflow").  Here we get exactness *and* the native all-reduce:
 partials < p < 2^30 are split into 15-bit limbs, each limb is psum'd in
 uint32 (safe for up to 2^17 devices), and the limbs are recombined mod p.
 The result is bit-exact, order-independent, and replicated — no root.

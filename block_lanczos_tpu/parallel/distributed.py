@@ -18,7 +18,7 @@ a stateless SPMD design on a ("rows", "cols") grid mesh:
 
 Bit-exactness holds for ANY grid shape because mod-p addition is
 associative and commutative and every reduction is exact (SURVEY.md
-section 2, "TPU-native equivalent").
+section 2).
 """
 
 from __future__ import annotations

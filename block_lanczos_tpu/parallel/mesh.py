@@ -1,8 +1,9 @@
 """Device mesh construction.
 
 The reference builds an MPI_Dims_create 2D process grid with row/column
-communicators (reference: mpi/lanczos_modp.c:505-566).  The TPU equivalent
-is a jax.sharding.Mesh with axes ("rows", "cols"):
+communicators (reference: mpi/lanczos_modp.c:505-566).  The equivalent
+here is a jax.sharding.Mesh with axes ("rows", "cols"); the mesh follows
+the algorithm alone, since NVLink joins every GPU of a host to every other:
 
   * rows — partitions the kernel dimension N_eff (vector blocks v/Av/p and
     the matrix's N-bands); the Mt*v partial reduction psums over it;

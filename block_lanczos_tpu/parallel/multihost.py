@@ -6,8 +6,8 @@ iteration (reference: mpi/lanczos_modp.c:505-566 grid init, :1054-1149
 distributed SpMV; README.md:39-46 mpiexec usage).  The JAX-native analogue is
 multi-controller SPMD: every process runs the SAME program, calls
 jax.distributed.initialize() against a shared coordinator, and builds one
-global mesh spanning every process's local devices (TPU pods: ICI within a
-slice, DCN across hosts).  There is no root — each process materializes only
+global mesh spanning every process's local devices (GPUs of a host over
+NVLink, hosts over the network).  There is no root — each process materializes only
 its addressable shards of the global arrays and the jitted solve step is a
 single collective program.
 
@@ -31,7 +31,9 @@ def init_distributed(coordinator: str, num_processes: int, process_id: int,
     processes jointly own global arrays and XLA inserts the collectives.
 
     Must run before any backend-touching JAX call.  `local_device_count`
-    forces N virtual CPU devices per process (testing without TPUs).
+    forces N virtual CPU devices per process (testing without GPUs).  On
+    one host with several GPUs, give each process its own cards with
+    CUDA_VISIBLE_DEVICES.
     """
     if local_device_count is not None:
         import os

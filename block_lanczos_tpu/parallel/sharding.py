@@ -46,7 +46,7 @@ from block_lanczos_tpu.parallel.mesh import COLS_AXIS, ROWS_AXIS
 # instance one band holds most of the nnz (measured 76% on one of 8 shards)
 # and the per-shard slab widths diverge.  The reference survives arbitrary
 # matrices because each MPI rank stores raw COO triplets with no per-shard
-# shape coupling (mpi/lanczos_modp.c:623-964); the TPU equivalent is an
+# shape coupling (mpi/lanczos_modp.c:623-964); the equivalent here is an
 # nnz-balanced PERMUTATION of the dimension onto equal padded bands —
 # bit-exact (mod-p sums are order-independent) and shape-uniform for
 # shard_map.  Uniform matrices keep the identity layout.
@@ -127,7 +127,7 @@ def balanced_band_map(counts: np.ndarray, parts: int,
     slab-width choices stay comparable.
 
     Above _LPT_EXACT_MAX indices the per-index heapq loop costs several
-    single-core seconds per axis per direction (ADVICE r3), so the deal is
+    single-core seconds per axis per direction, so the deal is
     split: exact LPT on the heaviest 128*parts indices (where balance is
     decided on power-law weights), then the near-uniform tail is
     snake-dealt (serpentine over bins ordered lightest-first) — fully
@@ -369,8 +369,8 @@ def _local_hybrid(d: _StackedDir, out_dim: int, in_dim: int, chunk: int,
 class _BandedStackedDir:
     """Input-banded variant of _StackedDir: one sub-dir per in-band, same
     bands on every shard (shard_map uniformity).  The local op becomes a
-    spmm.BandedOp so per-shard gather tables stay under the staging budget
-    (same measured policy as the single-device path — spmm.band_count)."""
+    spmm.BandedOp so per-shard gather tables stay under the banding
+    threshold (same policy as the single-device path — spmm.band_count)."""
     bounds: tuple                 # ((lo, hi), ...) in-band bounds
     dirs: tuple                   # tuple[_StackedDir, ...]
 
@@ -517,9 +517,8 @@ def _build_dir_local(f: GFp, parts, counts_list, out_dim: int, ell: int,
     processes agree without building non-local blocks: with delta encoding
     OFF, the spill of shard s is exactly sum(max(counts_s - ell, 0)) (no
     evictions), and the max spill segment is max(counts_s - ell).  Delta
-    slabs are skipped here — they are measured byte-neutral on the bench
-    device (PERF.md) and their eviction count cannot be agreed on without
-    building every shard.
+    slabs are skipped here — their eviction count cannot be agreed on
+    without building every shard.
     """
     from block_lanczos_tpu.ops import gfp
     spill_nnz = [int(np.maximum(c - ell, 0).sum()) for c in counts_list]
@@ -560,7 +559,7 @@ def _build_dir_local(f: GFp, parts, counts_list, out_dim: int, ell: int,
 def _build_dir_banded(f: GFp, parts, out_dim: int, in_dim: int, n: int,
                       R: int, C: int, nnz_sharding, chunk: int,
                       delta: bool = True, local=None):
-    """_build_dir with the measured input-banding policy applied per shard
+    """_build_dir with the input-banding policy applied per shard
     (spmm.band_count on the LOCAL in-band size; same bands on every shard)."""
     nb = spmm.band_count(in_dim, n)
     if nb == 1:

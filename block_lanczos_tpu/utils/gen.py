@@ -28,6 +28,18 @@ def random_sparse(nrows: int, ncols: int, row_density: int, seed: int = 0,
     return i, j, x
 
 
+def random_coo(nrows: int, ncols: int, row_density: int, prime: int,
+               seed: int = 0) -> mmio.COOMatrix:
+    """random_sparse as a COOMatrix over GF(prime), built in memory (no
+    MatrixMarket round trip); coefficients are uint64 above the narrow
+    field's bound, uint32 below it."""
+    i, j, x = random_sparse(nrows, ncols, row_density, seed)
+    dtype = np.uint64 if prime > 0x3FFFFFDD else np.uint32
+    return mmio.COOMatrix(nrows, ncols, len(x), i.astype(np.int32),
+                          j.astype(np.int32), (x % prime).astype(dtype),
+                          prime)
+
+
 def write_random_mtx(path: str, nrows: int, ncols: int, row_density: int,
                      seed: int = 0, max_value: int = 1 << 20):
     i, j, x = random_sparse(nrows, ncols, row_density, seed, max_value)

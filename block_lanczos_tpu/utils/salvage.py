@@ -118,8 +118,8 @@ def salvage_kernel(kernel: np.ndarray, vtM: np.ndarray, p: int,
 
 # ---------------------------------------------------------------------------
 # Completeness across restarts (round 5): a single salvage on a structured
-# instance typically recovers MOST of the block (chip-measured 115/128 on
-# skew1Mx750k); a restarted solve with a fresh v0 explores a different
+# instance typically recovers MOST of the block (115 of 128 vectors on
+# skew1Mx750k; not measured on the H100, ROADMAP A7); a restarted solve with a fresh v0 explores a different
 # Krylov space and its salvage fills in the residue.  The reference has no
 # analogue (it KOs, sequential/lanczos_modp.c:560-582).
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Multi-host (multi-controller) execution tests.
 
 Spawns REAL separate processes that join a jax.distributed coordinator and
-solve over a process-spanning CPU mesh — the TPU-native equivalent of the
+solve over a process-spanning CPU mesh — the equivalent of the
 reference's mpiexec runs (reference: mpi/lanczos_modp.c:505-566 grid init,
 README.md:39-46).  Golden parity: the 2-process x 4-device kernel must be
 byte-identical to the single-process result (exact mod-p arithmetic makes

@@ -20,7 +20,7 @@ import pytest
 from block_lanczos_tpu.utils import gen, mmio
 
 REF_SRC = "/root/reference/sequential"
-BUILD_DIR = "/tmp/blanczos_refbench"  # shared with bench.py
+BUILD_DIR = "/tmp/blanczos_refbench"
 BINARY = os.path.join(BUILD_DIR, "lanczos_modp")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -118,8 +118,8 @@ def test_combine_kernel_blocks_rank_filter():
 def test_salvage_restarts_meet_or_beat_single_yield():
     """On the seed-9 p=2 breakdown (reference-verbatim operator), restarts
     with fresh v0 blocks combine to AT LEAST the single-run salvage yield,
-    every column exactly verified and exactly independent (VERDICT r4 #7;
-    the reference just KOs)."""
+    every column exactly verified and exactly independent (the reference
+    just KOs)."""
     from block_lanczos_tpu.utils.salvage import salvage_with_restarts
 
     i, j, x = random_sparse(64, 96, 5, seed=9)

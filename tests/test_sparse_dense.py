@@ -259,31 +259,6 @@ def test_spmv_hybrid_out_pad(rng):
     assert (got[20:] == 0).all()
 
 
-def test_gram_mod_pallas_bit_exact():
-    """The Pallas Gram kernel must match the XLA path at every size class
-    (single block, multi-block, fold boundary, large a*b)."""
-    import pytest
-
-    from block_lanczos_tpu.ops.pallas_gram import gram_mod_pallas
-
-    p = 1073741789
-    f = gfp.GFp.make(p)
-    rng = np.random.default_rng(0)
-    try:
-        for N, a, b in [(100, 4, 4), (5000, 8, 4), (70_000, 8, 8),
-                        (9_000, 40, 32)]:
-            V = jnp.asarray(rng.integers(0, p, size=(N, a)).astype(np.uint32))
-            W = jnp.asarray(rng.integers(0, p, size=(N, b)).astype(np.uint32))
-            got = np.asarray(gram_mod_pallas(f, V, W))
-            exp = np.asarray(dense.gram_mod(f, V, W))
-            np.testing.assert_array_equal(got, exp)
-    except Exception as e:  # pragma: no cover - CPU interpret limitations
-        if ("Mosaic" in str(e) or "interpret mode" in str(e)
-                or "not implemented" in str(e).lower()):
-            pytest.skip(f"Pallas unsupported on this backend: {e}")
-        raise
-
-
 def test_delta_encoding_adopted_and_exact(rng):
     """Typical random matrix: the u16-delta slab is adopted (cols is None)
     and results stay bit-exact vs the oracle."""

@@ -7,8 +7,8 @@ power-law Zipf column popularity, alpha=1.2 — the shape of factorization
 relation matrices).  The reference's published numbers are on structured
 course matrices, not uniform random (reference benchmarks/times.txt),
 and its test discipline runs the challenge instance class end to end
-(doc/sujet.pdf section 4); this is our CPU-sized analogue of the chip
-job in scripts/chipqueue.sh (skew1Mx750k solve + checker).
+(doc/sujet.pdf section 4); this is our CPU-sized analogue of the
+skew1Mx750k solve + checker (ROADMAP A7).
 """
 
 import numpy as np
